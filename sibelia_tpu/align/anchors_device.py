@@ -36,9 +36,20 @@ random and real chaos outputs (tests/test_anchors_device.py).
 """
 from __future__ import annotations
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 
 _WS = " \t\n\v\f\r"
+
+# device coverage: device_jobs = sweeps run on the device, host_fallback
+# = inputs refused by the b_e < b_s precondition (the caller then runs
+# the native stage).  Read via get_stats().
+STATS = {"device_jobs": 0, "host_fallback": 0}
+
+
+def get_stats() -> dict:
+    return dict(STATS)
 
 
 def _rolltonum(s: str) -> int:
@@ -187,7 +198,28 @@ def _parse_chunk(line: str):
 
 
 def _sweep_device(a_s, a_e, score, ev_hit, ev_isstart):
-    """The event sweep as one jitted lax.scan.
+    """The event sweep as one jitted lax.scan (see _sweep).  Hits are
+    padded to a power of two so inputs of similar size share a compiled
+    program: padded hits get one start event each after the real events
+    and never an end event, so they only write their own (never alive)
+    rows.  Returns (sofar, bk, best, best_value) for the real hits."""
+    n = a_s.shape[0]
+    n_pad = 1 << max(4, (n - 1).bit_length())
+    extra = n_pad - n
+
+    def pad(x, fill=0):
+        return np.concatenate([x, np.full(extra, fill, x.dtype)])
+
+    ev_hit = np.concatenate([ev_hit, np.arange(n, n_pad, dtype=np.int32)])
+    ev_isstart = np.concatenate([ev_isstart, np.ones(extra, np.int32)])
+    sofar, bk, best, m1 = _sweep(pad(a_s), pad(a_e), pad(score),
+                                 pad(ev_hit, n), pad(ev_isstart, 1))
+    return (np.asarray(sofar)[:n], np.asarray(bk)[:n], int(best), float(m1))
+
+
+@jax.jit
+def _sweep(a_s, a_e, score, ev_hit, ev_isstart):
+    """The skiplist sweep over the event list.
 
     The skiplist is modeled by an `alive` vector.  Its invariant (sofar
     non-decreasing along ascending a_e) makes both operations masked
@@ -201,15 +233,7 @@ def _sweep_device(a_s, a_e, score, ev_hit, ev_isstart):
       * the final pick walks ascending with a strict '>', i.e. the
         smallest a_e among alive max-sofar entries.
     """
-    import jax
-    import jax.numpy as jnp
-
     n = a_s.shape[0]
-    a_s = jnp.asarray(a_s)
-    a_e = jnp.asarray(a_e)
-    score = jnp.asarray(score)
-    ev_hit = jnp.asarray(ev_hit)
-    ev_isstart = jnp.asarray(ev_isstart)
     NEG = jnp.float32(-3.4e38)
     IMIN = jnp.int32(-2**31 + 1)
     idx = jnp.arange(n, dtype=jnp.int32)
@@ -254,7 +278,7 @@ def _sweep_device(a_s, a_e, score, ev_hit, ev_isstart):
     mask2 = alive & (sofar == m1)
     m2 = jnp.min(jnp.where(mask2, a_e, jnp.int32(2**31 - 1)))
     best = jnp.argmax(mask2 & (a_e == m2))
-    return (np.asarray(sofar), np.asarray(bk), int(best), float(m1))
+    return sofar, bk, best, m1
 
 
 def anchors_text_device(hits_text: str, gfc: bool = True) -> str | None:
@@ -286,7 +310,9 @@ def anchors_text_device(hits_text: str, gfc: bool = True) -> str | None:
     b_e = np.asarray([hits[i][3] for i in order], dtype=np.int32)
     score = np.asarray([hits[i][4] for i in order], dtype=np.float32)
     if np.any(b_e < b_s):
+        STATS["host_fallback"] += 1
         return None  # precondition (see module docstring)
+    STATS["device_jobs"] += 1
 
     # event array in list order (start, end interleaved per hit),
     # stable-sorted by (number, starts-first), then runs of equal end

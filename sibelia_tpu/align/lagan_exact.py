@@ -30,9 +30,10 @@ from ..native import lagan_anchors, lagan_chaos, lagan_order, load_lagan
 
 def _anchors_stage(hits_text: str, gfc: bool) -> str:
     """anchors stage dispatch: the device weighted-LIS kernel
-    (align/anchors_device.py, byte-equal by differential test) on a
-    locally attached accelerator or when SIBELIA_TPU_ANCHORS_DEVICE=1;
-    the native C++ sweep otherwise."""
+    (align/anchors_device.py, byte-equal by differential test) when
+    device_dispatch() is on or SIBELIA_TPU_ANCHORS_DEVICE=1; the native
+    C++ sweep otherwise, and for inputs the device sweep refuses
+    (counted in anchors_device.STATS)."""
     import os
     env = os.environ.get("SIBELIA_TPU_ANCHORS_DEVICE")
     use_dev = env == "1"
@@ -166,8 +167,8 @@ def rechaos(seq1: bytes, name1: str, seq2: bytes, name2: str,
 def lagan_pl_mfa(seq1: bytes, name1: str, seq2: bytes, name2: str) -> str:
     """Full ``lagan.pl seq1 seq2 -mfa`` replacement; returns the mfa text.
 
-    The order-stage band DP routes to the accelerator when one is locally
-    attached (kernels/order_device.py — byte-identical pointer matrix,
+    The order-stage band DP routes to the device when device_dispatch()
+    is on (kernels/order_device.py — byte-identical pointer matrix,
     native band construction and traceback); SIBELIA_TPU_DEVICE_ORDER=1/0
     forces it on or off."""
     import os

@@ -37,6 +37,8 @@ def run(argv: list[str]) -> int:
     group.add_argument("-t", "--tempdir")
     group.add_argument("-o", "--outdir")
     args = parser.parse_args(argv)
+    from ..core.platform import enable_compile_cache
+    enable_compile_cache()
 
     cleanup = False
     if args.outdir is None:

@@ -74,6 +74,8 @@ def run(argv: list[str]) -> int:
             _is_writer = jax.process_index() == 0
             os.environ.setdefault("SIBELIA_TPU_SHARDED",
                                   str(jax.device_count()))
+    from ..core.platform import enable_compile_cache
+    enable_compile_cache()
     try:
         if args.stagefile is not None:
             stage = read_stage_file(args.stagefile)
@@ -109,8 +111,7 @@ def run(argv: list[str]) -> int:
             # arenas dominate, and the k>32 stages add the blockmix
             # signature lanes plus the 32-level and final-level rank
             # caches (~50 B/input byte beyond the k<=32 arena set;
-            # measured ~120 B/input byte total on multi-stage presets,
-            # docs/measured_r4.json provenance).
+            # measured ~120 B/input byte total on multi-stage presets).
             last_k = args.lastk if args.lastk is not None else \
                 min(stage[-1][0] if stage else (1 << 31), args.minblocksize)
             any_big_k = any(k > 32 for k, _ in stage) or last_k > 32

@@ -1,4 +1,4 @@
-"""Fully on-device bifurcation enumeration (the TPU hot path).
+"""Fully on-device bifurcation enumeration (the device hot path).
 
 Split from enumeration.py so the host CLI path never imports jax; the
 algebra and provenance comments are unchanged.
@@ -6,7 +6,6 @@ algebra and provenance comments are unchanged.
 from __future__ import annotations
 
 import functools
-import os
 
 import jax as _jax
 
@@ -14,7 +13,7 @@ from .ranking import SEP_CODE, _pack_plan
 from .ranking_device import _packed_keys
 
 # ---------------------------------------------------------------------------
-# Fully on-device enumeration (the TPU hot path)
+# Fully on-device enumeration (the device hot path)
 #
 # One stable device sort of the packed key pair delivers positions in
 # k-mer order; the whole group scan — prev/next char sets, the
@@ -78,17 +77,27 @@ def _enum_device_impl(codes, k: int):
                                              num_keys=3, is_stable=False)
         saux = saux & 63
     nv = jnp.sum(valid.astype(jnp.int32))
-    if _pallas_scan_active():
-        # the whole post-sort segment pipeline as three Pallas streaming
-        # passes (kernels/enum_scan.py); bit-identical to the XLA
-        # formulation below (differential test in tests/test_enum_scan.py)
-        from ..kernels.enum_scan import enum_segment_scan
-        interp = _jax.default_backend() != "tpu"  # tests force via env
-        ids_p, poskey_p, n_groups, n_sel = enum_segment_scan(
-            sk1, sk2, saux, order, interp, nv, n)
-        pos_sorted, id_sorted = jax.lax.sort((poskey_p, ids_p), num_keys=1,
-                                             is_stable=False)
-        return pos_sorted, id_sorted, n_sel, n_groups
+    ids, poskey, n_groups, n_sel = _segment_scan(sk1, sk2, saux, order, nv)
+    # pack selected instances ascending by supergenome position
+    pos_sorted, id_sorted = jax.lax.sort((poskey, ids), num_keys=1,
+                                         is_stable=False)
+    return pos_sorted, id_sorted, n_sel, n_groups
+
+
+def _segment_scan(sk1, sk2, saux, order, nv):
+    """The post-sort group scan of the fused enumeration (traceable).
+
+    sk1/sk2: sorted key pair (valid rows are the prefix [0, nv));
+    saux: sorted (prev << 3 | next) neighbor codes; order: sorted
+    supergenome positions.  Returns (ids, poskey, n_groups, n_sel):
+    the dense id of each row's counted group (in sorted order), the
+    position of each selected row (n for unselected rows), the counted
+    group count and the selected row count."""
+    import jax
+    import jax.numpy as jnp
+
+    n = sk1.shape[0]
+    iota = jax.lax.broadcasted_iota(jnp.int32, (n,), 0)
     isval = iota < nv  # valid rows are exactly the sorted prefix
     start = jnp.concatenate([
         jnp.ones((1,), jnp.bool_),
@@ -129,31 +138,8 @@ def _enum_device_impl(codes, k: int):
 
     sel = counted & isval
     n_sel = jnp.sum(sel.astype(jnp.int32))
-    # pack selected instances ascending by supergenome position
     poskey = jnp.where(sel, order, jnp.int32(n))
-    pos_sorted, id_sorted = jax.lax.sort((poskey, ids), num_keys=1,
-                                         is_stable=False)
-    return pos_sorted, id_sorted, n_sel, n_groups
-
-
-_PALLAS_SCAN = None  # resolved once: real-TPU backend + env override
-
-
-def _pallas_scan_active() -> bool:
-    """Use the Pallas segment-scan kernels when compiling for an actual
-    TPU (Mosaic targets TPU; on the CPU backend interpret mode would be
-    slower than the XLA formulation).  SIBELIA_TPU_PALLAS_SCAN=0 forces
-    the XLA scans, =1 forces Pallas regardless of backend."""
-    global _PALLAS_SCAN
-    env = os.environ.get("SIBELIA_TPU_PALLAS_SCAN")
-    if env is not None:
-        return env != "0"
-    if _PALLAS_SCAN is None:
-        try:
-            _PALLAS_SCAN = _jax.default_backend() == "tpu"
-        except Exception:
-            _PALLAS_SCAN = False
-    return _PALLAS_SCAN
+    return ids, poskey, n_groups, n_sel
 
 
 # banded self-join width for the device bulge-candidate prefilter: pairs

@@ -29,8 +29,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from .ranking import (CODE_OF, SEP_CODE, _PAD_BUCKET, _pack_plan,
-                      encode, kmer_ranks)
+from .ranking import (CODE_OF, SEP_CODE, _pack_plan, encode, kmer_ranks,
+                      pad_rows)
 
 NO_BIFURCATION = (1 << 32) - 1  # reference: BifurcationId(-1), uint32
 
@@ -231,7 +231,7 @@ def enumerate_bifurcations(chromosomes: list[bytes | np.ndarray], k: int,
         # selection) runs in one fused dispatch; only the selected
         # instances are transferred back
         import jax.numpy as jnp
-        pad_to = -(-n // _PAD_BUCKET) * _PAD_BUCKET
+        pad_to = pad_rows(n)
         codes_p = codes if pad_to == n else np.concatenate(
             [codes, np.zeros(pad_to - n, dtype=codes.dtype)])
         from ..core.platform import note_sync

@@ -12,7 +12,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from .ranking import SEP_CODE, _PAD_BUCKET, _SENT32, _pack_plan
+from .ranking import SEP_CODE, _SENT32, _pack_plan, pad_rows
 
 # ---------------------------------------------------------------------------
 # JAX path
@@ -47,7 +47,7 @@ def _packed_keys(codes: jax.Array, k: int):
 
 def _inverse_permute(sidx, values):
     """values placed at positions sidx — via a sort keyed by sidx (unique),
-    which TPUs execute far faster than the equivalent scatter."""
+    instead of the equivalent scatter."""
     _, out = jax.lax.sort((sidx, values), num_keys=1, is_stable=False)
     return out
 
@@ -93,8 +93,8 @@ def kmer_sorted_groups_jax(codes: jax.Array, k: int):
       order  — positions sorted by k-mer (the argsort itself),
       gid    — dense group id per sorted slot (cumsum of key-change flags),
       prev/next neighbor codes — post-sort gathers (two jnp.take passes
-               are far cheaper on TPU than carrying payload lanes through
-               every stage of the sorting network).
+               instead of carrying payload lanes through every stage of
+               the sorting network).
 
     Replaces the earlier two-sort formulation: per-position ranks (the
     second sort, an inverse permutation) are never needed — the group scan
@@ -119,7 +119,7 @@ def kmer_sorted_groups_jax(codes: jax.Array, k: int):
 
 def _kmer_ranks_jax(codes: np.ndarray, k: int):
     true_n = int(codes.shape[0])
-    pad_to = -(-true_n // _PAD_BUCKET) * _PAD_BUCKET
+    pad_to = pad_rows(true_n)
     if pad_to != true_n:
         codes = np.concatenate(
             [codes, np.zeros(pad_to - true_n, dtype=codes.dtype)])  # '#' pad

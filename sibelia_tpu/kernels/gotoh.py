@@ -8,14 +8,10 @@ recurrence rewritten as an exclusive running maximum:
 
     Iy[i,j] = GE*j + GO + max_{j'<j} (M[i,j'] - GE*j')
 
-so every row is pure vector work (VPU) and rows are a lax.fori_loop.
+so every row is pure vector work and rows are a lax.fori_loop.
 Outputs are per-cell direction bits; the (cheap, O(n+m)) traceback runs
 on host and reproduces the host Gotoh's alignments exactly
 (tests/test_gotoh_kernel.py).
-
-A Pallas wrapper runs the same row loop per grid step with VMEM-resident
-row state; the pure-jax vmap version is the fallback (and the CPU/test
-path, where Pallas runs in interpreter mode).
 """
 from __future__ import annotations
 

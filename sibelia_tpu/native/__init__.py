@@ -167,8 +167,7 @@ def simplify_native(seq, enum, k: int, min_branch: int,
                 lambda p, st: progress(int(p), int(st)))
             lib.engine_set_progress(handle, cb_keepalive)
         # device-side bulge detection: SIBELIA_TPU_WAVE_DEVICE=1 forces,
-        # =0 disables; default follows the backend gate (local TPU/GPU
-        # on, CPU/tunneled off)
+        # =0 disables; default follows device_dispatch()
         wd_env = os.environ.get("SIBELIA_TPU_WAVE_DEVICE")
         if wd_env is None:
             from ..core.platform import device_dispatch
@@ -176,17 +175,25 @@ def simplify_native(seq, enum, k: int, min_branch: int,
         else:
             use_wd = wd_env == "1"
         rp_keepalive = None
+        rp_error: list[BaseException] = []
         if use_wd:
             _configure_reprefilter_api(lib)
 
             def _rp(cand_ptr, n_ids):
+                # an exception cannot cross the C frame: stop answering
+                # (0 = "no bitmap") and re-raise once the sweep returns
+                if rp_error:
+                    return 0
                 try:
                     bm = _device_reprefilter(lib, handle, n_chr, k,
                                              min_branch, int(n_ids))
-                except Exception:
+                except BaseException as e:  # re-raised below
+                    rp_error.append(e)
                     return 0
                 if bm is None:
+                    REPREFILTER_STATS["host_fallback"] += 1
                     return 0
+                REPREFILTER_STATS["device"] += 1
                 ctypes.memmove(cand_ptr, bm.ctypes.data, int(n_ids))
                 return 1
 
@@ -203,6 +210,8 @@ def simplify_native(seq, enum, k: int, min_branch: int,
                 ret = lib.engine_simplify_sparse(
                     handle, k, min_branch, max_iterations, cand_ptr,
                     0 if candidates is None else enum.count)
+        if rp_error:
+            raise rp_error[0]
         with timings.phase("engine_writeback"):
             for c in range(n_chr):
                 ln = lib.engine_chr_len(handle, c)
@@ -576,8 +585,14 @@ def prolagan_native(seqs, names, profiles, pair_anchor_lines, tree) -> str | Non
 
 
 # ---------------------------------------------------------------------------
-# Device-side bulge detection (the sparse sweep's re-prefilter on TPU)
+# Device-side bulge detection (the sparse sweep's re-prefilter)
 # ---------------------------------------------------------------------------
+
+# re-prefilter answers: device = bitmaps computed on the device,
+# host_fallback = calls the int32 size gate sent back to the host
+# prefilter (the only documented fallback; any other failure raises)
+REPREFILTER_STATS = {"device": 0, "host_fallback": 0}
+
 
 def _configure_reprefilter_api(lib):
     if getattr(lib, "_reprefilter_configured", False):
@@ -608,7 +623,8 @@ def _device_reprefilter(lib, handle, n_chr, k, min_branch, n_ids):
     bitmap that is a SUPERSET of "AnyBulges reports a group" on the
     frozen state (same guarantee as the host prefilter, which also only
     removes ids the serial reference loop would leave untouched), or
-    None on any failure (host fallback).
+    None when the supergenome exceeds the kernel's int32 position space
+    (host fallback).
 
     This is the framework's second-hottest loop (the bif-id x
     branch-walk bulge scan, reference: src/bulgeremoval.cpp:158-218)
@@ -620,7 +636,7 @@ def _device_reprefilter(lib, handle, n_chr, k, min_branch, n_ids):
 
     from ..core.platform import note_sync
     from ..index.enumeration import _candidate_scan, build_supergenome
-    from ..index.ranking import _PAD_BUCKET
+    from ..index.ranking import pad_rows
 
     chroms = []
     for c in range(n_chr):
@@ -638,7 +654,9 @@ def _device_reprefilter(lib, handle, n_chr, k, min_branch, n_ids):
                             pos.ctypes.data, bif.ctypes.data)
 
     codes, block_starts = build_supergenome(chroms)
-    if codes.shape[0] >= (1 << 31):
+    n = codes.shape[0]
+    pad_to = pad_rows(n)
+    if pad_to >= (1 << 31):
         return None  # int32 kernel position space exceeded
     # positive-frame node -> supergenome coordinate (strand 1 lives in
     # the rc half at the mirrored local offset)
@@ -649,8 +667,6 @@ def _device_reprefilter(lib, handle, n_chr, k, min_branch, n_ids):
     sg = sg[order].astype(np.int32)
     ids = bif[order].astype(np.int32)
 
-    n = codes.shape[0]
-    pad_to = -(-n // _PAD_BUCKET) * _PAD_BUCKET
     if pad_to != n:
         codes = np.concatenate([codes,
                                 np.zeros(pad_to - n, dtype=codes.dtype)])

@@ -1472,7 +1472,7 @@ i64 engine_simplify(void* handle, i64 k, i64 min_branch, i64 max_iterations) {
 // Sparse sweep driver: identical output to engine_simplify (the dense
 // reference loop, src/blockfinder.cpp:16-51), visiting only ids that can
 // have bulges.  Iteration 1 visits `cand0` (caller-provided candidate
-// bitmap — e.g. computed on the TPU during enumeration — or the parallel
+// bitmap — e.g. computed on the device during enumeration — or the parallel
 // host prefilter when NULL); later iterations visit only ids flagged by
 // the mutation hooks during earlier collapses.  Differentially tested
 // against the dense Python engine (tests/test_native_engine.py).

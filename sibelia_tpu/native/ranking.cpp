@@ -40,7 +40,7 @@ namespace {
 // stay in the cache and are written back by the kernel; re-access is a
 // minor fault while cached, a disk read once evicted).  On a large-RAM
 // host this costs almost nothing; on a small host it degrades to
-// disk-streamed passes — the TPU-era equivalent of the reference's
+// disk-streamed passes — this framework's equivalent of the reference's
 // TempFile-streamed external suffix array
 // (reference: src/vertexenumeration.cpp:99-157, src/platform.cpp:44-128).
 // Temp files are unlinked at creation, so any exit reclaims the disk.
@@ -1460,9 +1460,9 @@ void compute_ranks(const uint8_t* codes, int64_t n, int64_t k,
       // tests/test_spill.py.
       const bool use_prep = spill_on();
       // In-RAM mode pays the per-member signature/validity gathers as
-      // demand misses in the bucket loop.  This box (and TPU-host VMs
-      // generally) is gather-THROUGHPUT-bound (~50M random lines/s per
-      // core, software prefetch measured neutral), so the win is fewer
+      // demand misses in the bucket loop.  The loop is
+      // gather-THROUGHPUT-bound (software prefetch measured neutral on
+      // the host it was tuned on), so the win is fewer
       // random LINES per row, not deeper pipelining: the two 8 B
       // signature lanes are interleaved into one 16 B record (one line
       // instead of two, written by the fold's fused final combine) and

@@ -2,7 +2,7 @@
 
 The distributed form of index/enumeration.py: the supergenome is cut
 into per-device position shards, k-mer keys are extracted locally
-(halo exchange over ICI via ppermute), and grouping runs as a
+(halo exchange via ppermute), and grouping runs as a
 distributed sample sort — local sort, splitter selection from gathered
 order statistics, all_to_all exchange into contiguous key ranges, local
 segmented ranking, all_gather'd prefix offsets.  k > 32 refines by
@@ -24,30 +24,21 @@ probabilistically); every exchange reports overflow and the host wrapper
 retries with doubled capacity (a fresh jit) up to the worst case, so
 overflow is handled, not just detected.
 
-Collective traffic budget (per enumeration of N supergenome rows over
-D devices; derive the crossover from these, don't trust CPU-mesh
-timings — the virtual mesh serializes collectives on 2 cores and
-inverts the scaling):
+Collective traffic per enumeration of N supergenome rows over D devices
+(true on any interconnect; timings from a virtual CPU mesh say nothing
+about it, since that mesh serializes collectives on the host's cores):
 
   * halo ppermute: (k-1) bytes per device pair boundary — negligible.
   * splitter all_gather: 64*D order statistics — negligible.
   * key all_to_all (k <= 32: once; k > 32: once per doubling round):
     ~16 B/row leaves and ~16 B/row arrives per device, uniformly
-    spread, i.e. (N/D)*16 B per device per round over ICI.
+    spread, i.e. (N/D)*16 B per device per round.
   * final scan routing all_to_all: ~12 B/selected-row (selected rows
     are the bifurcation instances, typically ~5-10% of N).
   * k > 32 doubling all_gather of the rank vector: 4*N bytes INTO each
     device per round — the one unpartitioned term and therefore the
     multi-chip scalability limiter for large k (ceil(log2(k/32))
     rounds).
-
-Projected crossover on real ICI (v5e-class, ~45 GB/s/link, single-chip
-fused enumeration ~4.5 ns/kmer): exchange cost ~0.36 ns/row per
-all_to_all round is well under the ~4.5 ns/row compute, so k <= 32
-sharding pays off as soon as a genome exceeds one chip's HBM working
-set (~2^27 rows); for k > 32 the unpartitioned rank all_gather caps
-useful D at roughly compute/gather = (4.5 ns * N/D) / (4 B * N / BW),
-i.e. D <~ 50 on a v5e slice before the gather dominates.
 """
 from __future__ import annotations
 
@@ -231,21 +222,29 @@ def _build_step(k: int, L: int, n_dev: int, axis: str, cap: int,
         # window is separator-free (classic prefix doubling ranks by
         # cover-length prefixes; a full-k-valid position's sub-windows
         # are always cover-valid, so the final ranks are well-defined)
-        cover = m
-        cvalid = valid_at(cover)
-        rank_pos, of = _rank_round(p[:L], p[off:off + L], cvalid, gpos,
-                                   did, axis, n_dev, L, cap, cap_back)
-        for shift in shifts:
-            cover += shift
-            cvalid = valid_at(cover)
+        rank_pos, of = _rank_round(p[:L], p[off:off + L], valid_at(m),
+                                   gpos, did, axis, n_dev, L, cap, cap_back)
+        # the doubling rounds share shapes, so they run as one loop: the
+        # round (three large sorts) compiles once for any k
+        shift_of = jnp.asarray(shifts, jnp.int32)
+        cover_of = jnp.asarray(np.cumsum(shifts, dtype=np.int64) + m,
+                               jnp.int32)
+
+        def doubling_round(i, carry):
+            rank_pos, of = carry
             allr = jax.lax.all_gather(rank_pos, axis, tiled=True)
             shifted = jax.lax.dynamic_slice(
                 jnp.concatenate([allr, jnp.full((HK,), jnp.int32(N))]),
-                (did * L + shift,), (L,))
+                (did * L + shift_of[i],), (L,))
             rank_pos, ofr = _rank_round(
                 rank_pos.astype(jnp.uint32), shifted.astype(jnp.uint32),
-                cvalid, gpos, did, axis, n_dev, L, cap, cap_back)
-            of = of | ofr
+                valid_at(cover_of[i]), gpos, did, axis, n_dev, L, cap,
+                cap_back)
+            return rank_pos, of | ofr
+
+        if shifts:
+            rank_pos, of = jax.lax.fori_loop(0, len(shifts), doubling_round,
+                                             (rank_pos, of))
 
         # ---- scan phase: route valid tuples to rank-range owners
         owner = jnp.where(valid, rank_pos // rank_chunk, jnp.int32(n_dev))
@@ -324,19 +323,10 @@ def _compiled_step(k: int, L: int, n_dev: int, axis: str, cap: int,
                    cap_back: int, cap_scan: int, mesh_key):
     mesh = _MESHES[mesh_key]
     step = _build_step(k, L, n_dev, axis, cap, cap_back, cap_scan)
-    try:
-        from jax import shard_map
-        sharded = shard_map(
-            step, mesh=mesh,
-            in_specs=(P(axis, None), P(axis)),
-            out_specs=(P(axis, None), P(axis, None), P(), P()))
-    except (ImportError, TypeError):  # older jax
-        from jax.experimental.shard_map import shard_map
-        sharded = shard_map(
-            step, mesh=mesh,
-            in_specs=(P(axis, None), P(axis)),
-            out_specs=(P(axis, None), P(axis, None), P(), P()),
-            check_rep=False)
+    sharded = jax.shard_map(
+        step, mesh=mesh,
+        in_specs=(P(axis, None), P(axis)),
+        out_specs=(P(axis, None), P(axis, None), P(), P()))
 
     @jax.jit
     def run(codes_sharded):
@@ -355,6 +345,19 @@ def production_mesh(n_devices: int) -> Mesh:
     Mesh per call would defeat the compiled-step cache)."""
     devs = jax.devices()[:n_devices]
     return Mesh(np.asarray(devs), ("seq",))
+
+
+def shard_len(n0: int, n_dev: int, k: int) -> int:
+    """Rows per device for an n0-row supergenome: a power of two, so
+    stages whose sequence shrinks reuse one compiled step per k
+    (1024-row granularity where a power of two would leave the int32
+    position space)."""
+    L = max(-(-n0 // n_dev), 2048)
+    L2 = 1 << (L - 1).bit_length()
+    L = L2 if n_dev * L2 < (1 << 31) else -(-L // 1024) * 1024
+    while L < k + 16:
+        L *= 2
+    return L
 
 
 def enumerate_bifurcations_sharded(chromosomes: list[bytes], k: int,
@@ -376,10 +379,7 @@ def enumerate_bifurcations_sharded(chromosomes: list[bytes], k: int,
     n_chr = len(chromosomes)
     n_dev = int(mesh.devices.size)
     axis = mesh.axis_names[0]
-    L = -(-n0 // n_dev)
-    L = max(-(-L // 1024) * 1024, 2048)
-    while L < k + 16:
-        L *= 2
+    L = shard_len(n0, n_dev, k)
     N = n_dev * L
     padded = np.zeros(N, dtype=np.uint8)
     padded[:n0] = codes

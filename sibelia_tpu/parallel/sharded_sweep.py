@@ -41,18 +41,6 @@ from jax.sharding import Mesh, PartitionSpec as P
 from ..index.enum_device import _CAND_BAND
 from ..index.ranking import SEP_CODE
 
-try:
-    from jax import shard_map as _sm
-
-    def _shard_map(f, mesh, in_specs, out_specs):
-        return _sm(f, mesh=mesh, in_specs=in_specs, out_specs=out_specs)
-except ImportError:
-    from jax.experimental.shard_map import shard_map as _smx
-
-    def _shard_map(f, mesh, in_specs, out_specs):
-        return _smx(f, mesh=mesh, in_specs=in_specs, out_specs=out_specs)
-
-
 _COMPILED: dict = {}
 _MESHES: dict = {}
 
@@ -119,9 +107,9 @@ def _build(k: int, min_branch: int, B: int, n: int, mesh_key: int):
         cand = ((pair_t != 0) & (nbits >= 2)) | (ov_t != 0)
         return cand[:B]
 
-    f = _shard_map(body, mesh,
-                   in_specs=(P(), P(), P(), P(axis), P(axis), P(axis)),
-                   out_specs=P())
+    f = jax.shard_map(body, mesh=mesh,
+                      in_specs=(P(), P(), P(), P(axis), P(axis), P(axis)),
+                      out_specs=P())
     return jax.jit(f)
 
 

@@ -1,6 +1,6 @@
 """Anchored pairwise / progressive alignment engine.
 
-TPU-native replacement for the vendored LAGAN toolkit (reference:
+Alternative to the vendored LAGAN toolkit (reference:
 src/lagan/ — chaos seeding via threaded trie + skiplist chaining, then
 `order`'s anchored banded Needleman-Wunsch; driven by lagan.pl/mlagan for
 C-Sibelia's block alignment, C-Sibelia.py:279-292).
@@ -10,8 +10,8 @@ k-mer machinery as the index layer), chained by longest-increasing
 subsequence; the inter-anchor gaps are closed with affine-gap global
 alignment (Gotoh) using LAGAN's substitution matrix and gap parameters
 (reference: src/lagan/nucmatrix.txt). Gap subproblems are independent, so
-they batch naturally; small ones run vectorized on host, and the batched
-Pallas wavefront kernel is the planned device path.
+they batch naturally; small ones run vectorized on host, or as one
+vmapped device batch (kernels/gotoh.py) under device_gap_batching.
 """
 from __future__ import annotations
 
@@ -182,7 +182,7 @@ DEVICE_BATCH_T = 128
 
 class _DeviceGapBatcher:
     """Collects small gap subproblems during anchored alignment and closes
-    them with the batched device kernel (Pallas on TPU, interpret on CPU),
+    them with the vmapped device batch (kernels/gotoh.py::batch_align),
     which produces alignments identical to the host Gotoh."""
 
     def __init__(self):
@@ -198,8 +198,8 @@ class _DeviceGapBatcher:
     def flush(self):
         if not self.pairs:
             return
-        from ..kernels.gotoh_pallas import batch_align_pallas
-        results = batch_align_pallas(self.pairs, T=DEVICE_BATCH_T)
+        from ..kernels.gotoh import batch_align
+        results = batch_align(self.pairs, T=DEVICE_BATCH_T)
         for slot, (ra, rb) in zip(self.slots, results):
             slot[0], slot[1] = ra, rb
         self.pairs = []

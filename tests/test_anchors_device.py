@@ -78,3 +78,21 @@ def test_real_chaos_output():
         want = lagan_anchors(hits, gfc=gfc)
         got = anchors_text_device(hits, gfc=gfc)
         assert got == want
+
+
+def test_stats_count_device_and_fallback(monkeypatch):
+    """Every device sweep and every refused input (b_e < b_s, which the
+    caller hands to the native stage) is counted, so a host fallback in
+    the anchors stage is visible."""
+    from sibelia_tpu.align import anchors_device as AD
+    from sibelia_tpu.align.lagan_exact import _anchors_stage
+
+    good = _hit_line(10, 40, 12, 42, 30.0)
+    bad = _hit_line(10, 40, 50, 20, 30.0)
+    s0 = AD.get_stats()
+    assert anchors_text_device(good) is not None
+    monkeypatch.setenv("SIBELIA_TPU_ANCHORS_DEVICE", "1")
+    assert _anchors_stage(bad, True) == lagan_anchors(bad, gfc=True)
+    s1 = AD.get_stats()
+    assert s1["device_jobs"] - s0["device_jobs"] == 1
+    assert s1["host_fallback"] - s0["host_fallback"] == 1

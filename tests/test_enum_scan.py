@@ -1,41 +1,39 @@
-"""Differential test: the Pallas post-sort segment pipeline
-(kernels/enum_scan.py, interpret mode) vs the XLA formulation it
-replaces on TPU backends (index/enumeration.py::_enum_device_impl)."""
+"""Differential test: the fused enumeration's post-sort group scan
+(index/enum_device.py::_segment_scan, the XLA cumsum/cummax pipeline)
+vs a numpy oracle that applies the reference's bifurcation rule
+(vertexenumeration.cpp:67-70,227-245) group by group."""
 import numpy as np
 import pytest
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp
 
-from sibelia_tpu.kernels.enum_scan import TILE, enum_segment_scan
+from sibelia_tpu.index.enum_device import _segment_scan
 
 
-def _xla_reference(sk1, sk2, saux, order, nv, n):
-    iota = jnp.arange(n, dtype=jnp.int32)
-    isval = iota < nv
-    start = jnp.concatenate([
-        jnp.ones((1,), jnp.bool_),
-        (sk1[1:] != sk1[:-1]) | (sk2[1:] != sk2[:-1])])
-    # segment boundary forced at the first invalid row (k == 32 all-T vs
-    # sentinel disambiguation; mirrors _enum_device_impl)
-    start = start | (iota == nv)
-    prev_aux = jnp.concatenate([saux[:1], saux[:-1]])
-    A = ((~start) & (prev_aux != saux)).astype(jnp.int32)
-    B = (((saux >> 3) == 0) | ((saux & 7) == 0)).astype(jnp.int32)
-    ordinal = jnp.cumsum(start.astype(jnp.int32))
-    seg_a = jax.lax.cummax((ordinal << 1) | A) & 1
-    seg_b = jax.lax.cummax((ordinal << 1) | B) & 1
-    is_end = jnp.concatenate([start[1:], jnp.ones((1,), jnp.bool_)])
-    counted_end = jnp.where(
-        is_end, seg_b | (seg_a & (~start).astype(jnp.int32)), 0)
-    max_ord = ordinal[n - 1]
-    fkey = ((max_ord - jnp.flip(ordinal)) << 1) | jnp.flip(counted_end)
-    counted = (jnp.flip(jax.lax.cummax(fkey)) & 1).astype(jnp.bool_)
-    id_cums = jnp.cumsum((start & counted & isval).astype(jnp.int32))
-    ids = id_cums - 1
-    sel = counted & isval
-    poskey = jnp.where(sel, order, jnp.int32(n))
-    return ids, poskey, id_cums[-1], jnp.sum(sel.astype(jnp.int32))
+def _oracle(k1, k2, aux, order, nv):
+    """Per-group rule over the valid prefix [0, nv): returns (ids at
+    selected rows, poskey, n_groups, n_sel)."""
+    n = len(k1)
+    poskey = np.full(n, n, np.int64)
+    ids = np.full(n, -1, np.int64)
+    next_id = 0
+    i = 0
+    while i < nv:
+        j = i + 1
+        while j < nv and k1[j] == k1[i] and k2[j] == k2[i]:
+            j += 1
+        prev = {int(a) >> 3 for a in aux[i:j]}
+        nxt = {int(a) & 7 for a in aux[i:j]}
+        bif = len(prev) > 1 or 0 in prev or len(nxt) > 1 or 0 in nxt
+        terminal = 0 in prev or 0 in nxt
+        if bif and (j - i > 1 or terminal):
+            poskey[i:j] = order[i:j]
+            ids[i:j] = next_id
+            next_id += 1
+        i = j
+    sel = poskey < n
+    return ids[sel], poskey, next_id, int(sel.sum())
 
 
 def _segments(rng, n, max_len):
@@ -51,23 +49,27 @@ def _segments(rng, n, max_len):
     return k1, k2
 
 
-@pytest.mark.parametrize("seed,max_len,tiles", [(0, 8, 2), (1, 1, 2),
-                                                (2, 300, 3)])
-def test_pallas_scan_matches_xla(seed, max_len, tiles):
+@pytest.mark.parametrize("seed,max_len,n", [(0, 8, 2048), (1, 1, 2048),
+                                            (2, 300, 3072)])
+def test_segment_scan_matches_oracle(seed, max_len, n):
     rng = np.random.default_rng(seed)
-    n = tiles * TILE
     k1, k2 = _segments(rng, n, max_len)
-    aux = rng.integers(0, 64, size=n).astype(np.uint32)
+    prev = rng.integers(0, 5, size=n)
+    nxt = rng.integers(0, 5, size=n)
+    # runs of identical neighbors so uniform (non-bifurcating) groups occur
+    same = rng.random(n) < 0.7
+    prev = np.where(same, 2, prev)
+    nxt = np.where(same, 3, nxt)
+    aux = ((prev << 3) | nxt).astype(np.uint32)
     order = rng.permutation(n).astype(np.int32)
-    nv = np.int32(n - int(rng.integers(0, n // 3)))
+    nv = int(n - int(rng.integers(0, n // 3)))
 
-    r_ids, r_poskey, r_ng, r_ns = _xla_reference(
+    ids, poskey, ng, ns = _segment_scan(
         jnp.asarray(k1), jnp.asarray(k2), jnp.asarray(aux),
-        jnp.asarray(order), nv, n)
-    ids, poskey, ng, ns = enum_segment_scan(
-        jnp.asarray(k1), jnp.asarray(k2), jnp.asarray(aux),
-        jnp.asarray(order), True, jnp.asarray(nv), n)
-    assert int(ng) == int(r_ng)
-    assert int(ns) == int(r_ns)
-    assert jnp.array_equal(ids, r_ids)
-    assert jnp.array_equal(poskey, r_poskey)
+        jnp.asarray(order), jnp.int32(nv))
+    r_ids, r_poskey, r_ng, r_ns = _oracle(k1, k2, aux, order, nv)
+    assert int(ng) == r_ng
+    assert int(ns) == r_ns
+    assert np.array_equal(np.asarray(poskey), r_poskey)
+    assert np.array_equal(np.asarray(ids)[r_poskey < n], r_ids)
+    assert r_ns > 0

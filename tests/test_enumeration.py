@@ -238,9 +238,9 @@ def test_device_fused_path_matches_host(monkeypatch):
     chroms = [bytes(base), bytes(mut), bytes(base[200:2200])]
     for k in (5, 11, 30, 32):
         host = E.enumerate_bifurcations(chroms, k)
-        monkeypatch.setenv("SIBELIA_TPU_FORCE_DEVICE_ENUM", "1")
+        monkeypatch.setenv("SIBELIA_TPU_DEVICE", "1")
         dev = E.enumerate_bifurcations(chroms, k)
-        monkeypatch.delenv("SIBELIA_TPU_FORCE_DEVICE_ENUM")
+        monkeypatch.delenv("SIBELIA_TPU_DEVICE")
         assert dev.count == host.count
         for s in (0, 1):
             assert np.array_equal(dev.chr[s], host.chr[s])
@@ -297,9 +297,9 @@ def test_device_candidates_superset(monkeypatch):
     chroms = [bytes(base), bytes(mut)]
     for k, d in ((7, 40), (15, 150), (25, 400)):
         truth = _true_bulge_ids(chroms, k, d)
-        monkeypatch.setenv("SIBELIA_TPU_FORCE_DEVICE_ENUM", "1")
+        monkeypatch.setenv("SIBELIA_TPU_DEVICE", "1")
         dev = E.enumerate_bifurcations(chroms, k, min_branch=d)
-        monkeypatch.delenv("SIBELIA_TPU_FORCE_DEVICE_ENUM")
+        monkeypatch.delenv("SIBELIA_TPU_DEVICE")
         assert dev.candidates is not None
         flagged = set(np.flatnonzero(dev.candidates).tolist())
         missing = truth - flagged
@@ -329,9 +329,9 @@ def test_pipeline_parity_with_device_candidates(monkeypatch):
         return bf.raw_seq, bf.original_pos
 
     host_seq, host_op = run_stages()
-    monkeypatch.setenv("SIBELIA_TPU_FORCE_DEVICE_ENUM", "1")
+    monkeypatch.setenv("SIBELIA_TPU_DEVICE", "1")
     dev_seq, dev_op = run_stages()
-    monkeypatch.delenv("SIBELIA_TPU_FORCE_DEVICE_ENUM")
+    monkeypatch.delenv("SIBELIA_TPU_DEVICE")
     for a, b in zip(host_seq, dev_seq):
         assert np.array_equal(a, b)
     for a, b in zip(host_op, dev_op):
@@ -427,7 +427,7 @@ print(h.hexdigest())
 
 
 def test_device_k32_homopolymer_matches_host(monkeypatch):
-    """ADVICE r3 (high): at k == 32 a genuine all-T (or, via rc, all-A)
+    """Regression: at k == 32 a genuine all-T (or, via rc, all-A)
     window has the same sort keys as the invalid-window sentinel; the
     device path must force a segment boundary at the valid-row count so
     the all-T group's verdict is not computed at an invalid row.  Both
@@ -453,14 +453,11 @@ def test_device_k32_homopolymer_matches_host(monkeypatch):
     chroms = [bytes(a), bytes(b)]
     for k in (30, 31, 32):
         host = E.enumerate_bifurcations(chroms, k)
-        for scan_env in ("0", "1"):  # XLA scans / Pallas interpret scans
-            monkeypatch.setenv("SIBELIA_TPU_FORCE_DEVICE_ENUM", "1")
-            monkeypatch.setenv("SIBELIA_TPU_PALLAS_SCAN", scan_env)
-            dev = E.enumerate_bifurcations(chroms, k)
-            monkeypatch.delenv("SIBELIA_TPU_FORCE_DEVICE_ENUM")
-            monkeypatch.delenv("SIBELIA_TPU_PALLAS_SCAN")
-            assert dev.count == host.count, (k, scan_env)
-            for s in (0, 1):
-                assert np.array_equal(dev.chr[s], host.chr[s]), (k, scan_env)
-                assert np.array_equal(dev.pos[s], host.pos[s]), (k, scan_env)
-                assert np.array_equal(dev.bif_id[s], host.bif_id[s]), (k, scan_env)
+        monkeypatch.setenv("SIBELIA_TPU_DEVICE", "1")
+        dev = E.enumerate_bifurcations(chroms, k)
+        monkeypatch.delenv("SIBELIA_TPU_DEVICE")
+        assert dev.count == host.count, k
+        for s in (0, 1):
+            assert np.array_equal(dev.chr[s], host.chr[s]), k
+            assert np.array_equal(dev.pos[s], host.pos[s]), k
+            assert np.array_equal(dev.bif_id[s], host.bif_id[s]), k

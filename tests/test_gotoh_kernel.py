@@ -41,10 +41,16 @@ def test_batch_align_empty_sides():
     assert got[0] == ("ACGT", "ACGT")
 
 
-def test_pallas_kernel_matches_host():
-    from sibelia_tpu.kernels.gotoh_pallas import batch_align_pallas
+def test_gap_batcher_flush_matches_host():
+    """The device gap batcher (variants/aligner.py::_DeviceGapBatcher)
+    closes deferred gaps through the vmapped batch; every slot must hold
+    the host Gotoh alignment."""
+    from sibelia_tpu.variants.aligner import _DeviceGapBatcher
     rng = np.random.default_rng(5)
     pairs = [_rand_pair(rng) for _ in range(12)]
-    got = batch_align_pallas(pairs, T=128)
-    for (a, b), (ra, rb) in zip(pairs, got):
-        assert (ra, rb) == _gotoh(a, b)
+    batcher = _DeviceGapBatcher()
+    slots = [batcher.defer(a, b) for a, b in pairs]
+    batcher.flush()
+    assert batcher.pairs == [] and batcher.slots == []
+    for (a, b), slot in zip(pairs, slots):
+        assert tuple(slot) == _gotoh(a, b)

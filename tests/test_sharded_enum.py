@@ -116,9 +116,9 @@ def test_forced_device_k_over_32_uses_single_device_pipeline(monkeypatch):
     chroms = _genome(19, n=20000, muts=40, chroms=2)
     for k in (40, 100):
         host = enumerate_bifurcations(chroms, k)
-        monkeypatch.setenv("SIBELIA_TPU_FORCE_DEVICE_ENUM", "1")
+        monkeypatch.setenv("SIBELIA_TPU_DEVICE", "1")
         dev = enumerate_bifurcations(chroms, k)
-        monkeypatch.delenv("SIBELIA_TPU_FORCE_DEVICE_ENUM")
+        monkeypatch.delenv("SIBELIA_TPU_DEVICE")
         _assert_equal(host, dev, k)
 
 

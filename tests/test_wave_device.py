@@ -68,6 +68,44 @@ def test_wave_device_pipeline_parity(monkeypatch, candidates):
         assert fired[0] > 0  # the initial prefilter must have routed
 
 
+def test_reprefilter_error_surfaces_from_sweep(monkeypatch):
+    """An exception in the device re-prefilter cannot cross the native
+    sweep's C frame; the wrapper must re-raise it after the sweep instead
+    of finishing silently on the host prefilter."""
+    if load() is None:
+        pytest.skip("native engine unavailable")
+    calls = [0]
+
+    def broken(*a, **kw):
+        calls[0] += 1
+        raise RuntimeError("device prefilter failed")
+
+    monkeypatch.setattr(native, "_device_reprefilter", broken)
+    with pytest.raises(RuntimeError, match="device prefilter failed"):
+        _run_stage(_genomes(), "1", monkeypatch)
+    assert calls[0] == 1  # later callbacks stop asking the device
+
+
+def test_reprefilter_error_fails_cli(monkeypatch, tmp_path, capsys):
+    if load() is None:
+        pytest.skip("native engine unavailable")
+    from sibelia_tpu.cli.sibelia import run
+
+    fa = tmp_path / "g.fasta"
+    fa.write_text("".join(">c%d\n%s\n" % (i, g.decode())
+                          for i, g in enumerate(_genomes())))
+
+    def broken(*a, **kw):
+        raise RuntimeError("device prefilter failed")
+
+    monkeypatch.setattr(native, "_device_reprefilter", broken)
+    monkeypatch.setenv("SIBELIA_TPU_WAVE_DEVICE", "1")
+    rc = run(["-s", "fine", "-m", "500", "-o", str(tmp_path / "out"),
+              str(fa)])
+    assert rc != 0
+    assert "device prefilter failed" in capsys.readouterr().err
+
+
 def test_device_reprefilter_superset_of_truth(monkeypatch):
     """The device bitmap on a mid-simplification state must cover every
     id the serial AnyBulges reports (direct superset check against the
